@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from ldpcgputegra_tpu.codes.alist import load_alist, save_alist
-from ldpcgputegra_tpu.codes.registry import load_code
+from ldpcgputegra.codes.alist import load_alist, save_alist
+from ldpcgputegra.codes.registry import load_code
 
 
 def test_alist_roundtrip(tmp_path):

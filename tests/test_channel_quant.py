@@ -12,7 +12,7 @@ import jax
 import numpy as np
 import pytest
 
-from ldpcgputegra_tpu.channel import (
+from ldpcgputegra.channel import (
     AwgnChannel,
     ChannelSpec,
     FakeEncoder,
@@ -23,9 +23,9 @@ from ldpcgputegra_tpu.channel import (
     generate_info_bits,
     sigma_for_snr,
 )
-from ldpcgputegra_tpu.codes.registry import load_code
-from ldpcgputegra_tpu.golden.decoder import syndrome_ok
-from ldpcgputegra_tpu.quant import QuantSpec, quantize_llr
+from ldpcgputegra.codes.registry import load_code
+from ldpcgputegra.golden.decoder import syndrome_ok
+from ldpcgputegra.quant import QuantSpec, quantize_llr
 
 
 def test_sigma_formula():
@@ -122,7 +122,7 @@ def test_qc_accumulate_encoder_table():
     path = os.path.join(
         os.path.dirname(__file__),
         "..",
-        "ldpcgputegra_tpu",
+        "ldpcgputegra",
         "codes",
         "data",
         "encoder_16200x10800.json",
@@ -153,7 +153,7 @@ def test_make_encoder_auto():
 def test_rayleigh_fading_statistics():
     """Matched-filter Rayleigh output: E[y] = E[h^2]*(-1) = -1 for bit 0,
     and BER is much worse than AWGN at the same SNR (fading penalty)."""
-    from ldpcgputegra_tpu.channel import AwgnChannel, ChannelSpec
+    from ldpcgputegra.channel import AwgnChannel, ChannelSpec
 
     n = 4000
     tx = np.zeros((128, n), np.int8)
@@ -170,7 +170,7 @@ def test_rayleigh_fading_statistics():
 
 
 def test_llr_histogram():
-    from ldpcgputegra_tpu.quant import QuantSpec, llr_histogram
+    from ldpcgputegra.quant import QuantSpec, llr_histogram
 
     q = np.array([-31, -31, 0, 5, 31], np.int8)
     h = llr_histogram(q, QuantSpec())
@@ -180,7 +180,7 @@ def test_llr_histogram():
 
 
 def test_optimal_llr_factor():
-    from ldpcgputegra_tpu.quant import QuantSpec, optimal_llr_factor
+    from ldpcgputegra.quant import QuantSpec, optimal_llr_factor
 
     spec = QuantSpec()
     f_low = optimal_llr_factor(0.5, spec)   # low noise -> larger scale
@@ -214,7 +214,7 @@ def test_qpsk_and_esn0_modes():
 
 
 def test_make_qc_code_roundtrip():
-    from ldpcgputegra_tpu.codes.registry import make_qc_code
+    from ldpcgputegra.codes.registry import make_qc_code
 
     base = np.array([[0, 1, -1, 2, 0, -1],
                      [-1, 0, 3, -1, 1, 0]])

@@ -1,6 +1,6 @@
 """CLI argument surface tests (the reference's flag union, SURVEY §5.6)."""
 
-from ldpcgputegra_tpu.sim.cli import build_parser, config_from_args
+from ldpcgputegra.sim.cli import build_parser, config_from_args
 
 
 def test_full_flag_surface_parses():
@@ -52,7 +52,7 @@ def test_tfer_alias():
 
 
 def test_info_and_histo_smoke(capsys):
-    from ldpcgputegra_tpu.sim.cli import _print_histo, _print_info, config_from_args, build_parser
+    from ldpcgputegra.sim.cli import _print_histo, _print_info, config_from_args, build_parser
 
     cfg = config_from_args(build_parser().parse_args(
         ["--code", "576x288", "--batch", "16"]))

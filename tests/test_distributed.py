@@ -23,8 +23,8 @@ jax.config.update("jax_num_cpu_devices", 4)
 pid = int(sys.argv[1]); port = sys.argv[2]
 jax.distributed.initialize(
     coordinator_address=f"127.0.0.1:{port}", num_processes=2, process_id=pid)
-from ldpcgputegra_tpu.ops.layered import LayeredSpec
-from ldpcgputegra_tpu.sim.distributed import run_distributed_point
+from ldpcgputegra.ops.layered import LayeredSpec
+from ldpcgputegra.sim.distributed import run_distributed_point
 res = run_distributed_point(
     "576x288", 2.0, 64, 3, LayeredSpec(algo="OMS", iters=3), seed=5)
 if res is not None:
@@ -64,8 +64,8 @@ def test_two_process_distributed_matches_single():
     frames, be, fe = map(int, result[0].split()[1:])
 
     # single-process reference on the 8-device mesh, same keys
-    from ldpcgputegra_tpu.ops.layered import LayeredSpec
-    from ldpcgputegra_tpu.sim.distributed import run_distributed_point
+    from ldpcgputegra.ops.layered import LayeredSpec
+    from ldpcgputegra.sim.distributed import run_distributed_point
 
     ref = run_distributed_point(
         "576x288", 2.0, 64, 3, LayeredSpec(algo="OMS", iters=3), seed=5

@@ -12,11 +12,11 @@ import jax
 import numpy as np
 import pytest
 
-from ldpcgputegra_tpu.channel.awgn import AwgnChannel, ChannelSpec
-from ldpcgputegra_tpu.codes.registry import load_code
-from ldpcgputegra_tpu.decoder import make_decoder
-from ldpcgputegra_tpu.ops.layered import LayeredSpec
-from ldpcgputegra_tpu.sim.distributed import run_dp_tp_point
+from ldpcgputegra.channel.awgn import AwgnChannel, ChannelSpec
+from ldpcgputegra.codes.registry import load_code
+from ldpcgputegra.decoder import make_decoder
+from ldpcgputegra.ops.layered import LayeredSpec
+from ldpcgputegra.sim.distributed import run_dp_tp_point
 
 CODE = "64800x32400"
 SNR = 1.0  # deep in the waterfall: every frame errs, counters are rich

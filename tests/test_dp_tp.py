@@ -6,10 +6,10 @@ tp-replicated, so a two-axis psum would overcount)."""
 import numpy as np
 import pytest
 
-from ldpcgputegra_tpu.codes.registry import load_code
-from ldpcgputegra_tpu.ops.layered import LayeredSpec, make_layered_decoder
-from ldpcgputegra_tpu.parallel.mesh import decode_mesh_2d
-from ldpcgputegra_tpu.parallel.rowshard import (
+from ldpcgputegra.codes.registry import load_code
+from ldpcgputegra.ops.layered import LayeredSpec, make_layered_decoder
+from ldpcgputegra.parallel.mesh import decode_mesh_2d
+from ldpcgputegra.parallel.rowshard import (
     make_dp_tp_decoder,
     rowshard_supported,
 )
@@ -68,7 +68,7 @@ def test_dp_tp_dvbs2_staircase():
     code = load_code("16200x7560")
     assert rowshard_supported(code, 4)
     mesh = decode_mesh_2d(2, 4)
-    from ldpcgputegra_tpu.decoder import make_decoder
+    from ldpcgputegra.decoder import make_decoder
 
     spec = LayeredSpec(algo="OMS", iters=2)
     step = make_dp_tp_decoder(code, spec, mesh, count_errors=False)
@@ -84,7 +84,7 @@ def test_rowshard_rejects_2d_mesh():
     fraction of the row slices; it must be rejected loudly."""
     code = load_code("576x288")
     mesh = decode_mesh_2d(2, 4)
-    from ldpcgputegra_tpu.parallel.rowshard import make_rowsharded_decoder
+    from ldpcgputegra.parallel.rowshard import make_rowsharded_decoder
 
     with pytest.raises(AssertionError, match="1-D mesh"):
         make_rowsharded_decoder(code, LayeredSpec(algo="OMS", iters=2), mesh)

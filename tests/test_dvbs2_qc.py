@@ -9,12 +9,12 @@ deficient-circulant handling, which must be exactly an absent edge.
 import numpy as np
 import pytest
 
-from ldpcgputegra_tpu.codes.code import DegreeClass, LdpcCode
-from ldpcgputegra_tpu.codes.dvbs2 import is_staircase, to_qc_form
-from ldpcgputegra_tpu.codes.registry import load_code
-from ldpcgputegra_tpu.decoder import effective_code, make_decoder
-from ldpcgputegra_tpu.golden import GoldenParams, decode_oracle
-from ldpcgputegra_tpu.ops.layered import LayeredSpec, make_layered_decoder
+from ldpcgputegra.codes.code import DegreeClass, LdpcCode
+from ldpcgputegra.codes.dvbs2 import is_staircase, to_qc_form
+from ldpcgputegra.codes.registry import load_code
+from ldpcgputegra.decoder import effective_code, make_decoder
+from ldpcgputegra.golden import GoldenParams, decode_oracle
+from ldpcgputegra.ops.layered import LayeredSpec, make_layered_decoder
 
 
 def _golden_view(qc: LdpcCode) -> LdpcCode:
@@ -110,7 +110,7 @@ def test_derived_16200x10800_code_end_to_end():
     """The H derived from the reference's encoder table (which shipped with
     no matrix) loads, QC-ifies, decodes its own encoder's frames, and
     corrects channel errors."""
-    from ldpcgputegra_tpu.channel.encoder import make_encoder
+    from ldpcgputegra.channel.encoder import make_encoder
 
     code = load_code("16200x10800")
     assert (code.N, code.K, code.n_checks) == (16200, 10800, 5400)

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from ldpcgputegra_tpu.codes.registry import load_code
-from ldpcgputegra_tpu.decoder.extras import make_fake_decoder, make_hybrid_decoder
-from ldpcgputegra_tpu.golden.native import native_available
-from ldpcgputegra_tpu.ops.layered import LayeredSpec, make_layered_decoder
-from ldpcgputegra_tpu.utils.debug import check_dataset
+from ldpcgputegra.codes.registry import load_code
+from ldpcgputegra.decoder.extras import make_fake_decoder, make_hybrid_decoder
+from ldpcgputegra.golden.native import native_available
+from ldpcgputegra.ops.layered import LayeredSpec, make_layered_decoder
+from ldpcgputegra.utils.debug import check_dataset
 
 
 def _llrs(n, b, seed=0):
@@ -49,8 +49,8 @@ def test_check_dataset(capsys):
 
 
 def test_decode_stream_ordered_results():
-    from ldpcgputegra_tpu.decoder.stream import DecodeStream
-    from ldpcgputegra_tpu.golden import GoldenParams, decode_oracle
+    from ldpcgputegra.decoder.stream import DecodeStream
+    from ldpcgputegra.golden import GoldenParams, decode_oracle
 
     code = load_code("576x288")
     spec = LayeredSpec(algo="OMS", iters=4)
@@ -72,12 +72,12 @@ def test_twophase_decoder_matches_per_frame_early_term():
     at k1 keep their k1-iteration bits; the rest get full-depth bits."""
     import numpy as np
 
-    from ldpcgputegra_tpu.codes.registry import load_code
-    from ldpcgputegra_tpu.decoder.twophase import (
+    from ldpcgputegra.codes.registry import load_code
+    from ldpcgputegra.decoder.twophase import (
         make_twophase_decoder,
         syndrome_fn,
     )
-    from ldpcgputegra_tpu.ops.layered import LayeredSpec, make_layered_decoder
+    from ldpcgputegra.ops.layered import LayeredSpec, make_layered_decoder
 
     code = load_code("576x288")
     spec = LayeredSpec(algo="OMS", iters=10)
@@ -102,7 +102,7 @@ def test_twophase_decoder_matches_per_frame_early_term():
 def test_twophase_pipelined_matches_serial():
     """decode_pipelined returns exactly the per-batch serial results (the
     pipelining only reorders dispatch, never computation)."""
-    from ldpcgputegra_tpu.decoder.twophase import make_twophase_decoder
+    from ldpcgputegra.decoder.twophase import make_twophase_decoder
 
     code = load_code("576x288")
     spec = LayeredSpec(algo="OMS", iters=8)
@@ -124,7 +124,7 @@ def test_twophase_pipelined_fused_matches_serial():
     """The fused single-dispatch variant returns the same bits as the
     serial two-phase decoder, including when the fixed tail bucket
     overflows (exact repair via full-budget re-decode)."""
-    from ldpcgputegra_tpu.decoder.twophase import make_twophase_decoder
+    from ldpcgputegra.decoder.twophase import make_twophase_decoder
 
     code = load_code("576x288")
     spec = LayeredSpec(algo="OMS", iters=8)
@@ -148,3 +148,21 @@ def test_twophase_pipelined_fused_matches_serial():
     assert agg2["overflows"] == 0
     for a, b in zip(serial, piped2):
         np.testing.assert_array_equal(a, np.asarray(b))
+
+
+@pytest.mark.parametrize("b,t", [(16, 5), (130, 128), (64, 1)])
+def test_onehot_gather_equals_take(b, t):
+    """The two-phase tail gather (one-hot bf16 product, float32 sum) is
+    exact for int8 LLRs: it equals ``jnp.take`` row for row, over the whole
+    int8 range."""
+    import jax.numpy as jnp
+
+    from ldpcgputegra.decoder.twophase import onehot_gather
+
+    rng = np.random.default_rng(b + t)
+    llr = jnp.asarray(rng.integers(-128, 128, size=(b, 97)), jnp.int8)
+    idx = jnp.asarray(rng.integers(0, b, size=t), jnp.int32)
+    np.testing.assert_array_equal(
+        np.asarray(onehot_gather(llr, idx)),
+        np.asarray(jnp.take(llr, idx, axis=0)),
+    )

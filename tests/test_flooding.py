@@ -4,9 +4,9 @@ quality sanity."""
 import numpy as np
 import pytest
 
-from ldpcgputegra_tpu.codes.registry import load_code, make_random_regular_code
-from ldpcgputegra_tpu.ops.flooding import flooding_golden, make_flooding_decoder
-from ldpcgputegra_tpu.ops.layered import LayeredSpec
+from ldpcgputegra.codes.registry import load_code, make_random_regular_code
+from ldpcgputegra.ops.flooding import flooding_golden, make_flooding_decoder
+from ldpcgputegra.ops.layered import LayeredSpec
 
 
 def _llrs(n, b, seed=0):
@@ -74,8 +74,8 @@ def test_flooding_on_staircase_code_valid_codeword():
     applied effective_code()'s QC view (a column permutation) before the
     flooding dispatch, so a valid noiseless codeword decoded with thousands
     of bit errors (masked by all-zero-codeword sims)."""
-    from ldpcgputegra_tpu.channel.encoder import make_encoder
-    from ldpcgputegra_tpu.decoder import make_decoder
+    from ldpcgputegra.channel.encoder import make_encoder
+    from ldpcgputegra.decoder import make_decoder
 
     code = load_code("16200x7560")
     enc = make_encoder(code, "staircase")

@@ -8,9 +8,9 @@ equal iteration count on every algorithm variant and schedule.
 import numpy as np
 import pytest
 
-from ldpcgputegra_tpu.codes.registry import load_code, make_random_regular_code
-from ldpcgputegra_tpu.golden import GoldenParams, decode_golden, decode_oracle
-from ldpcgputegra_tpu.ops.layered import LayeredSpec, make_layered_decoder
+from ldpcgputegra.codes.registry import load_code, make_random_regular_code
+from ldpcgputegra.golden import GoldenParams, decode_golden, decode_oracle
+from ldpcgputegra.ops.layered import LayeredSpec, make_layered_decoder
 
 
 def _random_llrs(n, b, seed=0):
@@ -62,8 +62,8 @@ def test_gather_path_bit_exact_random_code():
 def test_colored_schedule_matches_its_own_golden_order():
     """The colored schedule is a permuted layered order: verify the JAX
     decoder against a golden model run with the same permuted order."""
-    from ldpcgputegra_tpu.codes.code import DegreeClass, LdpcCode
-    from ldpcgputegra_tpu.codes.schedule import build_layers
+    from ldpcgputegra.codes.code import DegreeClass, LdpcCode
+    from ldpcgputegra.codes.schedule import build_layers
 
     code = make_random_regular_code(512, 256, 8, seed=5)
     layers = build_layers(code, "colored")
@@ -142,7 +142,7 @@ def test_nms_runtime_factor_bit_exact(nf, nf2):
     fixed path: VECTOR_MUL + DIV32, default 29 — main_p.cpp:136,293):
     the XLA decoder, the NumPy golden model and the native C++ oracle
     must agree bit-for-bit at non-default factors, for NMS and 2NMS."""
-    from ldpcgputegra_tpu.golden.native import (
+    from ldpcgputegra.golden.native import (
         decode_golden_native,
         native_available,
     )
@@ -173,7 +173,7 @@ def test_nms_runtime_factor_pallas_interpret():
     separate code path) — interpret-mode vs the XLA decoder."""
     code = load_code("576x288")
     llrs = _random_llrs(code.N, 2, seed=78)
-    from ldpcgputegra_tpu.kernels import make_pallas_decoder
+    from ldpcgputegra.kernels import make_pallas_decoder
 
     spec = LayeredSpec(algo="2NMS", iters=4, minclamp="post",
                        schedule="reference", nms_f=29, nms_f2=31)

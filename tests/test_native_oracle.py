@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from ldpcgputegra_tpu.codes.registry import load_code, make_random_regular_code
-from ldpcgputegra_tpu.golden.decoder import (
+from ldpcgputegra.codes.registry import load_code, make_random_regular_code
+from ldpcgputegra.golden.decoder import (
     GoldenParams,
     decode_golden,
     syndrome_ok,
 )
-from ldpcgputegra_tpu.golden.native import (
+from ldpcgputegra.golden.native import (
     decode_golden_native,
     native_available,
     syndrome_ok_native,
@@ -74,20 +74,20 @@ def test_native_encode_matches_numpy():
     """Native accumulate encode must equal the NumPy path bit for bit."""
     import os
 
-    from ldpcgputegra_tpu.channel.encoder import (
+    from ldpcgputegra.channel.encoder import (
         QCAccumulateEncoder,
         StaircaseEncoder,
     )
-    from ldpcgputegra_tpu.channel.bitgen import generate_info_bits
+    from ldpcgputegra.channel.bitgen import generate_info_bits
 
-    os.environ["LDPC_TPU_NO_NATIVE"] = "0"
+    os.environ["LDPC_NO_NATIVE"] = "0"
     code = load_code("16200x7560")
     enc = StaircaseEncoder(code)
     rng = np.random.default_rng(3)
     info = generate_info_bits(rng, 3, code.K)
     native = enc.encode(info)
     # force the numpy fallback by monkeypatching availability
-    import ldpcgputegra_tpu.golden.native as gn
+    import ldpcgputegra.golden.native as gn
 
     orig = gn.native_available
     gn.native_available = lambda: False
@@ -105,7 +105,7 @@ def test_simd_decoder_bit_exact_all_algos():
     NumPy golden model: every algo, both minclamps, ET on/off, runtime
     NMS factor, a ragged (non-multiple-of-64) batch so padded lanes and
     the valid-mask path are exercised."""
-    from ldpcgputegra_tpu.golden.native import (
+    from ldpcgputegra.golden.native import (
         decode_simd_native,
         simd_available,
     )
@@ -137,7 +137,7 @@ def test_simd_decoder_bit_exact_all_algos():
 
 def test_simd_decoder_narrow_quantizers():
     """sat_var/sat_msg below the int8 extremes (the -var/-msg flags)."""
-    from ldpcgputegra_tpu.golden.native import (
+    from ldpcgputegra.golden.native import (
         decode_simd_native,
         simd_available,
     )

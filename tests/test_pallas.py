@@ -1,24 +1,38 @@
-"""Pallas kernel bit-exactness vs the golden model (interpret mode on CPU).
+"""The fused Pallas-Triton QC kernel, bit-exact against the golden model.
 
-The compiled kernel is additionally validated on real TPU hardware by the
-bench/verify flows; interpret mode checks the kernel's semantics are
-bit-identical to the reference-order layered schedule.
+On the CPU the kernel runs in the Pallas interpreter (``interpret=True``),
+which checks its semantics: indexing, masks, the layer and iteration loops,
+early termination.  ``test_kernel_compiled_on_gpu`` runs the compiled
+kernel and ``test_kernel_z360_tiles_and_warps_on_gpu`` runs it at every
+tile and warp count it may take on the Z=360 views; both need a GPU
+(``gpu`` marker; ``JAX_PLATFORMS=cuda python -m pytest -m gpu tests/`` on a
+machine with one).
 """
 
+import jax
 import numpy as np
 import pytest
+from helpers import dup_col_code, llrs, tiny_staircase_view
 
-from ldpcgputegra_tpu.codes.registry import load_code
-from ldpcgputegra_tpu.golden.decoder import GoldenParams, decode_golden
-from ldpcgputegra_tpu.kernels import make_pallas_decoder, pallas_supported
-from ldpcgputegra_tpu.ops.layered import LayeredSpec, make_layered_decoder
+from ldpcgputegra.codes.registry import load_code, make_random_qc_code
+from ldpcgputegra.decoder import effective_code, make_decoder
+from ldpcgputegra.golden import decode_scheduled, params_for
+from ldpcgputegra.golden.decoder import GoldenParams, decode_golden
+from ldpcgputegra.kernels import (
+    make_pallas_decoder,
+    pallas_layered,
+    pallas_supported,
+)
+from ldpcgputegra.kernels.pallas_layered import (
+    pick_batch_tile,
+    pick_num_warps,
+    pick_rows,
+)
+from ldpcgputegra.ops.layered import LayeredSpec, make_layered_decoder
 
 
-def _llrs(n, b, seed=0):
-    rng = np.random.default_rng(seed)
-    return np.clip(
-        8.0 * rng.normal(-1.0, 0.8, size=(b, n)), -31, 31
-    ).astype(np.int8)
+def _pallas(code, spec, **kw):
+    return make_pallas_decoder(code, spec, interpret=True, **kw)
 
 
 @pytest.mark.parametrize("algo,minclamp", [("OMS", "pre"), ("NMS", "post")])
@@ -26,9 +40,8 @@ def test_pallas_bit_exact_vs_golden(algo, minclamp):
     code = load_code("576x288")
     spec = LayeredSpec(algo=algo, iters=3, minclamp=minclamp)
     assert pallas_supported(code, spec)
-    dec = make_pallas_decoder(code, spec, batch_tile=128, interpret=True)
-    llr = _llrs(code.N, 128, seed=42)
-    bits, _ = dec(llr)
+    llr = llrs(code.N, 32, seed=42)
+    bits, _ = _pallas(code, spec, batch_tile=16)(llr)
     bits = np.asarray(bits)
     gp = GoldenParams(algo=algo, iters=3, minclamp=minclamp)
     for b in range(3):
@@ -37,214 +50,210 @@ def test_pallas_bit_exact_vs_golden(algo, minclamp):
 
 
 def test_pallas_early_term_matches_fixed():
-    """ET freezes converged lanes; output must equal the fixed-iter path."""
+    """ET freezes converged codewords; output must equal the fixed-iter
+    path wherever the fixed path also stays converged."""
     code = load_code("576x288")
-    llr = _llrs(code.N, 128, seed=9)
-    d_f = make_pallas_decoder(
-        code, LayeredSpec(algo="OMS", iters=4), batch_tile=128, interpret=True
-    )
-    d_e = make_pallas_decoder(
-        code,
-        LayeredSpec(algo="OMS", iters=4, early_term=True),
-        batch_tile=128,
-        interpret=True,
-    )
-    np.testing.assert_array_equal(
-        np.asarray(d_f(llr)[0]), np.asarray(d_e(llr)[0])
-    )
+    llr = llrs(code.N, 32, seed=9)
+    d_e = _pallas(code, LayeredSpec(algo="OMS", iters=4, early_term=True),
+                  batch_tile=16)
+    d_x = make_layered_decoder(
+        code, LayeredSpec(algo="OMS", iters=4, early_term=True))
+    be, ie = d_e(llr)
+    bx, ix = d_x(llr)
+    np.testing.assert_array_equal(np.asarray(be), np.asarray(bx))
+    assert int(ie) == int(ix)
 
 
 def test_pallas_matches_xla_path():
     """Pallas and the XLA roll path implement the same schedule."""
     code = load_code("576x288")
     spec = LayeredSpec(algo="2NMS", iters=3, minclamp="post")
-    llr = _llrs(code.N, 128, seed=5)
-    p = make_pallas_decoder(code, spec, batch_tile=128, interpret=True)
+    llr = llrs(code.N, 32, seed=5)
+    p = _pallas(code, spec, batch_tile=16)
     x = make_layered_decoder(code, spec)
     np.testing.assert_array_equal(np.asarray(p(llr)[0]), np.asarray(x(llr)[0]))
 
 
-def test_pick_batch_tile_fits_vmem():
-    from ldpcgputegra_tpu.kernels.pallas_layered import (
-        pick_batch_tile,
-        vmem_per_lane,
-    )
-
-    for name in ("576x288", "2304x1152", "16200x7560"):
-        code = load_code(name)
-        tb = pick_batch_tile(code)
-        assert 128 <= tb <= 1024 and tb % 128 == 0
-        assert tb * vmem_per_lane(code) <= (100 << 20)
-    # a tight budget must shrink the tile below the 256 cap
-    big = load_code("2304x1152")
-    assert pick_batch_tile(big, vmem_budget=5 << 20) == 128
-
-
 def test_pallas_et_reports_iterations_used():
-    """ET kernel counts executed iterations; noiseless input converges at 1."""
+    """ET counts executed iterations; noiseless input converges at 1."""
     code = load_code("576x288")
-    dec = make_pallas_decoder(
-        code,
-        LayeredSpec(algo="OMS", iters=10, early_term=True),
-        batch_tile=128,
-        interpret=True,
-    )
-    strong = np.full((128, code.N), -31, np.int8)
+    dec = _pallas(code, LayeredSpec(algo="OMS", iters=10, early_term=True),
+                  batch_tile=16)
+    strong = np.full((16, code.N), -31, np.int8)
     _, iters = dec(strong)
     assert int(iters) == 1
-    noisy = _llrs(code.N, 128, seed=3)
-    _, iters2 = dec(noisy)
+    _, iters2 = dec(llrs(code.N, 16, seed=3))
     assert 1 <= int(iters2) <= 10
 
 
 def test_pallas_odd_z_padded_layout_bit_exact():
-    """Odd-Z QC codes (Z not a sublane multiple — 1944x972's Z=81 class)
-    run on the padded-Zp layout with two-roll emulated mod-Z rotations;
-    must stay bit-exact vs the XLA reference path, with and without
-    early termination (dummy-row parity masking)."""
-    import numpy as np
-    from ldpcgputegra_tpu.codes.registry import make_random_qc_code
-    from ldpcgputegra_tpu.ops.layered import make_layered_decoder
-
-    code = make_random_qc_code(16, 8, 5, Z=12, seed=9)  # Zp = 16
-    rng = np.random.default_rng(3)
-    llr = np.clip(
-        8.0 * rng.normal(-1.0, 0.9, size=(256, code.N)), -31, 31
-    ).astype(np.int8)
-    for et in (False, True):
-        spec = LayeredSpec(algo="OMS", iters=5, early_term=et)
-        b_ref, it_ref = make_layered_decoder(code, spec)(llr)
-        dec = make_pallas_decoder(code, spec, interpret=True)
-        b_pl, it_pl = dec(llr)
-        np.testing.assert_array_equal(np.asarray(b_ref), np.asarray(b_pl))
-        assert int(it_ref) == int(it_pl)
+    """Z = 12 and Z = 9 pad to a power-of-two row chunk whose spare rows
+    are masked off; bit-exact vs the XLA path with and without ET."""
+    for z in (12, 9):
+        code = make_random_qc_code(16, 8, 5, Z=z, seed=9)
+        llr = llrs(code.N, 24, seed=3, sigma=0.9)
+        for et in (False, True):
+            spec = LayeredSpec(algo="OMS", iters=5, early_term=et)
+            b_ref, it_ref = make_layered_decoder(code, spec)(llr)
+            b_pl, it_pl = _pallas(code, spec, batch_tile=8)(llr)
+            np.testing.assert_array_equal(np.asarray(b_ref), np.asarray(b_pl))
+            assert int(it_ref) == int(it_pl)
 
 
 def test_pallas_emit_mask_matches_true_syndrome():
-    """emit_mask: the kernel's third output is the TRUE per-frame
-    syndrome of the output hard decisions, pinned against the
-    golden-model bits + syndrome_ok (and against syndrome_fn on the
-    whole batch)."""
-    from ldpcgputegra_tpu.decoder.twophase import syndrome_fn
-    from ldpcgputegra_tpu.golden.decoder import syndrome_ok
+    """emit_mask through make_decoder: the third output is the TRUE
+    per-frame syndrome of the output hard decisions."""
+    from ldpcgputegra.decoder.twophase import syndrome_fn
+    from ldpcgputegra.golden.decoder import syndrome_ok
 
     code = load_code("576x288")
     spec = LayeredSpec(algo="OMS", iters=4)
-    dec = make_pallas_decoder(
-        code, spec, batch_tile=128, interpret=True, emit_mask=True
-    )
-    # moderate noise (sigma 0.75 at 4 iters: ~35/48 syndrome-ok —
-    # measured): the batch must contain BOTH kinds of frames
-    rng = np.random.default_rng(21)
-    llr = np.clip(
-        8.0 * rng.normal(-1.0, 0.75, size=(128, code.N)), -31, 31
-    ).astype(np.int8)
+    dec = make_decoder(code, spec, backend="pallas", interpret=True,
+                       emit_mask=True)
+    # moderate noise: the batch must contain both kinds of frames
+    llr = llrs(code.N, 48, seed=21, sigma=0.75)
     bits, _, ok = dec(llr)
     bits, ok = np.asarray(bits), np.asarray(ok)
-    assert ok.shape == (128,) and ok.dtype == np.bool_
-    assert 0 < ok.sum() < 128, "test needs a mixed batch"
-    np.testing.assert_array_equal(
-        ok, np.asarray(syndrome_fn(code)(bits))
-    )
+    assert ok.shape == (48,) and ok.dtype == np.bool_
+    assert 0 < ok.sum() < 48, "test needs a mixed batch"
+    np.testing.assert_array_equal(ok, np.asarray(syndrome_fn(code)(bits)))
     gp = GoldenParams(algo="OMS", iters=4)
-    for b in range(16):
+    for b in range(8):
         ref, _ = decode_golden(code, llr[b], gp)
         np.testing.assert_array_equal(bits[b], ref, err_msg=f"frame {b}")
         assert bool(ok[b]) == syndrome_ok(code, bits[b]), f"frame {b}"
 
 
 def test_pallas_emit_mask_ragged_batch():
-    """Lane padding must be sliced off the mask output."""
+    """Codeword padding must be sliced off every output."""
     code = load_code("576x288")
-    dec = make_pallas_decoder(
-        code, LayeredSpec(algo="OMS", iters=2), batch_tile=128,
-        interpret=True, emit_mask=True,
-    )
-    llr = _llrs(code.N, 70, seed=3)
-    bits, _, ok = dec(llr)
-    assert np.asarray(bits).shape == (70, code.N)
-    assert np.asarray(ok).shape == (70,)
+    dec = make_decoder(code, LayeredSpec(algo="OMS", iters=2),
+                       backend="pallas", interpret=True, emit_mask=True,
+                       batch_tile=16)
+    bits, _, ok = dec(llrs(code.N, 21, seed=3))
+    assert np.asarray(bits).shape == (21, code.N)
+    assert np.asarray(ok).shape == (21,)
 
 
 def test_pallas_emit_mask_subpass_oddz():
-    """emit_mask's in-kernel syndrome pass must honor sub-pass commit
-    rows (repeated block-columns) and padded-Z dummy rows: build a small
-    QC code with both, decode in interpret mode, pin ok against
-    syndrome_fn of the returned bits."""
-    from ldpcgputegra_tpu.codes.code import (
-        DegreeClass, Layer, LdpcCode, QCRow,
-    )
-    from ldpcgputegra_tpu.codes.dvbs2 import _conflict_groups
-    from ldpcgputegra_tpu.decoder.twophase import syndrome_fn
+    """emit_mask on a code with sub-pass layers and odd Z: ok equals
+    syndrome_fn of the returned bits, and the bits equal the golden
+    model's."""
+    from ldpcgputegra.decoder.twophase import syndrome_fn
 
-    rng = np.random.default_rng(7)
-    z, n_cols, n_rows = 12, 4, 2  # z=12: exercises the Zp=16 padded path
-    zz = np.arange(z, dtype=np.int64)[:, None]
-    layers, classes, class_idx = [], [], []
-    off = 0
-    got_subpass = False
-    for _ in range(n_rows):
-        deg = 4
-        while True:
-            cols = rng.integers(0, n_cols, size=deg).astype(np.int32)
-            shifts = rng.integers(0, z, size=deg).astype(np.int32)
-            if len({(int(c), int(s)) for c, s in zip(cols, shifts)}) == deg:
-                break
-        idx = (cols[None, :] * z + (shifts[None, :] + zz) % z).astype(
-            np.int32
-        )
-        groups = _conflict_groups(cols, shifts, z)
-        got_subpass |= len(groups) > 1
-        for g in groups:
-            layers.append(Layer(
-                idx=idx, edge_offset=off,
-                qc=QCRow(cols=cols, shifts=shifts,
-                         commit_rows=None if len(groups) == 1 else g),
-            ))
-        classes.append(DegreeClass(deg, z))
-        class_idx.append(idx)
-        off += idx.size
-    code = LdpcCode(
-        name="subpass_oddz", N=n_cols * z, K=n_cols * z - n_rows * z,
-        classes=tuple(classes), class_idx=tuple(class_idx), Z=z,
-        layers=tuple(layers),
-    )
-    assert got_subpass, "seed must produce a repeated block-column"
-    dec = make_pallas_decoder(
-        code, LayeredSpec(algo="OMS", iters=3), batch_tile=128,
-        interpret=True, emit_mask=True,
-    )
-    llr = np.clip(
-        8.0 * rng.normal(-0.6, 1.0, size=(128, code.N)), -31, 31
-    ).astype(np.int8)
+    code = dup_col_code(z=9)
+    spec = LayeredSpec(algo="OMS", iters=3)
+    dec = make_decoder(code, spec, backend="pallas", interpret=True,
+                       emit_mask=True, batch_tile=8)
+    llr = llrs(code.N, 40, seed=7, sigma=1.0)
     bits, _, ok = dec(llr)
     bits, ok = np.asarray(bits), np.asarray(ok)
     np.testing.assert_array_equal(ok, np.asarray(syndrome_fn(code)(bits)))
-    assert 0 < ok.sum() < 128  # mixed batch: the pin is non-trivial
+    assert 0 < ok.sum() < 40  # mixed batch: the pin is non-trivial
+    ref, _ = decode_scheduled(code, llr, params_for(spec))
+    np.testing.assert_array_equal(bits, ref)
 
 
-def test_et_footprint_flips_fit_verdict_on_dvbs2():
-    """Round-5 spot-check find: the first on-chip ET decode of
-    64800x32400 OOM'd scoped VMEM because pick_batch_tile sized the
-    tile against the NON-ET footprint (vmem_per_lane defaults
-    early_term=False) while the kernel allocated the ET snapshot too.
-    The fit verdict must be computed against the footprint of the
-    kernel actually built."""
-    from ldpcgputegra_tpu.codes.registry import load_code
-    from ldpcgputegra_tpu.decoder import _pallas_fits, effective_code
-    from ldpcgputegra_tpu.kernels.pallas_layered import (
-        pick_batch_tile,
-        vmem_per_lane,
-    )
+@pytest.mark.parametrize("et", [False, True])
+def test_pallas_deficient_circulant_and_subpass_view(et):
+    """The QC view of a staircase code (column permutation, a deficient
+    circulant and sub-pass layers) against the golden model."""
+    code = tiny_staircase_view()
+    spec = LayeredSpec(algo="OMS", iters=6, early_term=et)
+    llr = llrs(code.N, 24, seed=2, sigma=0.7)
+    bits, it = _pallas(code, spec, batch_tile=8)(llr)
+    ref, used = decode_scheduled(code, llr, params_for(spec))
+    np.testing.assert_array_equal(np.asarray(bits), ref)
+    assert int(it) == int(used.max())
 
-    code = effective_code(load_code("64800x32400"))
-    # the non-ET kernel fits the all-VMEM budget at its picked tile...
-    assert _pallas_fits(code, early_term=False)
-    # ...the ET snapshot (+N int8/lane) pushes it over: auto-routing
-    # must fall back (pallas-streamed supports snapshot ET and fits)
-    assert not _pallas_fits(code, early_term=True)
-    # and the tile picker must charge the ET footprint it builds with
-    tb_et = pick_batch_tile(code, early_term=True)
-    tb_no = pick_batch_tile(code, early_term=False)
-    assert tb_et * vmem_per_lane(code, True) <= \
-        tb_no * vmem_per_lane(code, True)
+
+def test_pallas_multi_tile_ragged_batch():
+    """Several programs, the last one padded: every frame is golden."""
+    code = load_code("576x288")
+    spec = LayeredSpec(algo="MS", iters=3, minclamp="post")
+    llr = llrs(code.N, 37, seed=17)
+    bits, it = _pallas(code, spec, batch_tile=8)(llr)
+    ref, _ = decode_scheduled(code, llr, params_for(spec))
+    np.testing.assert_array_equal(np.asarray(bits), ref)
+    assert int(it) == 3
+
+
+def test_tile_and_row_picks():
+    """Row chunks are powers of two padding Z by at most 20%; tiles are
+    at most 2048 elements and leave at least 32 programs where the batch
+    allows (the picks tuned on the card)."""
+    for z, r in ((360, 128), (96, 32), (81, 32), (24, 8), (8, 8)):
+        assert pick_rows(z) == r
+        assert -(-z // r) * r <= 1.2 * z
+    assert pick_batch_tile(8192, 32) == 64  # 2304x1152 / 1944x972
+    assert pick_batch_tile(1024, 128) == 16  # 64800x32400-dvbs2
+    assert pick_batch_tile(256, 128) == 8  # 64800x21600
+    assert pick_batch_tile(128, 32) == 8
+    assert pick_batch_tile(1 << 20, 8) == 64
+    assert (pick_num_warps(32, 64), pick_num_warps(128, 8),
+            pick_num_warps(8, 8)) == (8, 8, 4)
+
+
+def test_pallas_refuses_cpu_without_interpret():
+    """An explicit kernel on a machine with no GPU raises; it never falls
+    into the interpreter by itself."""
+    code = load_code("576x288")
+    with pytest.raises(RuntimeError, match="no GPU"):
+        make_pallas_decoder(code, LayeredSpec())
+    with pytest.raises(RuntimeError, match="no GPU"):
+        make_decoder(code, LayeredSpec(), backend="pallas")
+
+
+@pytest.mark.gpu
+def test_kernel_compiled_on_gpu(gpu):
+    """The compiled kernel at a real width equals the XLA path bit for bit,
+    with and without early termination."""
+    code = load_code("1944x972")
+    llr = llrs(code.N, 1024, seed=1, sigma=0.75)
+    for et in (False, True):
+        spec = LayeredSpec(algo="OMS", iters=10, early_term=et)
+        b_k, it_k = make_decoder(code, spec, backend="pallas")(llr)
+        b_x, it_x = make_decoder(code, spec, backend="xla")(llr)
+        np.testing.assert_array_equal(np.asarray(b_k), np.asarray(b_x))
+        assert int(it_k) == int(it_x)
+    assert jax.default_backend() == "gpu"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,sigma", [("64800x21600", 1.1),
+                                        ("64800x32400-dvbs2", 0.9)])
+def test_kernel_z360_tiles_and_warps_on_gpu(gpu, name, sigma, monkeypatch):
+    """The compiled kernel on the Z=360 QC views (sub-pass layers; column
+    permutation and a deficient circulant) at tiles of 4, 8 and 16
+    codewords with 4 and 8 warps, each bit-exact with the golden oracle
+    in the view's schedule and with its iteration count.  A tile or warp
+    count that alone gave wrong bits would point to a hazard between the
+    program's threads, which the interpreter cannot show."""
+    code = load_code(name)
+    spec = LayeredSpec(algo="OMS", iters=10)
+    llr = llrs(code.N, 256, seed=4, sigma=sigma)
+    ref, used = decode_scheduled(code, llr, params_for(spec))
+    view = effective_code(code)
+    for tb in (4, 8, 16):
+        for nw in (4, 8):
+            monkeypatch.setattr(pallas_layered, "pick_num_warps",
+                                lambda rows, tb, nw=nw: nw)
+            dec = make_pallas_decoder(view, spec, batch_tile=tb)
+            bits, it = dec(llr)
+            np.testing.assert_array_equal(np.asarray(bits), ref,
+                                          err_msg=f"tb={tb} nw={nw}")
+            assert int(it) == int(used.max())
+
+
+def test_pallas_splits_batches_past_the_offset_limit(monkeypatch):
+    """A batch whose message buffer would pass the 32-bit offset limit is
+    decoded in several calls; the result is unchanged."""
+    code = load_code("576x288")
+    spec = LayeredSpec(algo="OMS", iters=3, early_term=True)
+    llr = llrs(code.N, 40, seed=23)
+    whole = _pallas(code, spec, batch_tile=8)(llr)
+    # room for 32 frames' messages per call: two calls for 40 frames
+    monkeypatch.setattr(pallas_layered, "_MAX_BUF", 32 * code.M)
+    split = _pallas(code, spec, batch_tile=8)(llr)
+    np.testing.assert_array_equal(np.asarray(whole[0]), np.asarray(split[0]))
+    assert int(whole[1]) == int(split[1])

@@ -3,9 +3,9 @@
 import jax
 import numpy as np
 
-from ldpcgputegra_tpu.codes.registry import load_code
-from ldpcgputegra_tpu.ops.layered import LayeredSpec, make_layered_decoder
-from ldpcgputegra_tpu.parallel import decode_mesh, make_sharded_decoder
+from ldpcgputegra.codes.registry import load_code
+from ldpcgputegra.ops.layered import LayeredSpec, make_layered_decoder
+from ldpcgputegra.parallel import decode_mesh, make_sharded_decoder
 
 
 def _llrs(n, b, seed=0):
@@ -62,8 +62,8 @@ def test_sharded_ber_sweep_waterfall():
     the (virtual) mesh and psum'd counters — the pod-slice sweep shape."""
     import jax
 
-    from ldpcgputegra_tpu.channel.awgn import AwgnChannel, ChannelSpec
-    from ldpcgputegra_tpu.sim.analyzer import ErrorAnalyzer
+    from ldpcgputegra.channel.awgn import AwgnChannel, ChannelSpec
+    from ldpcgputegra.sim.analyzer import ErrorAnalyzer
 
     code = load_code("576x288")
     mesh = decode_mesh()

@@ -5,10 +5,10 @@ import numpy as np
 import pytest
 from hypothesis import given, settings, strategies as st
 
-from ldpcgputegra_tpu.codes.registry import make_qc_code, make_random_regular_code
-from ldpcgputegra_tpu.golden import GoldenParams, decode_oracle
-from ldpcgputegra_tpu.golden.native import native_available
-from ldpcgputegra_tpu.ops.layered import LayeredSpec, make_layered_decoder
+from ldpcgputegra.codes.registry import make_qc_code, make_random_regular_code
+from ldpcgputegra.golden import GoldenParams, decode_oracle
+from ldpcgputegra.golden.native import native_available
+from ldpcgputegra.ops.layered import LayeredSpec, make_layered_decoder
 
 pytestmark = pytest.mark.skipif(
     not native_available(), reason="native oracle not built"
@@ -80,8 +80,8 @@ def test_random_subpass_codes_agree(seed, z, n_rows):
     """Random QC codes WITH repeated block-columns: the sub-pass layer
     machinery (conflict grouping + masked commits + merged writebacks)
     must match a sequential golden of the same schedule."""
-    from ldpcgputegra_tpu.codes.code import DegreeClass, Layer, LdpcCode, QCRow
-    from ldpcgputegra_tpu.codes.dvbs2 import _conflict_groups
+    from ldpcgputegra.codes.code import DegreeClass, Layer, LdpcCode, QCRow
+    from ldpcgputegra.codes.dvbs2 import _conflict_groups
 
     rng = np.random.default_rng(seed)
     n_cols = 4
@@ -157,10 +157,10 @@ def test_random_subpass_codes_rowshard_agrees(seed, z, tp):
     """The row-sharded decoder on random sub-pass QC codes (repeated
     block-columns, masked commits) must match the single-device layered
     decoder — the worst-case schedule for the per-layer delta-psum merge."""
-    from ldpcgputegra_tpu.codes.code import DegreeClass, Layer, LdpcCode, QCRow
-    from ldpcgputegra_tpu.codes.dvbs2 import _conflict_groups
-    from ldpcgputegra_tpu.parallel.mesh import decode_mesh
-    from ldpcgputegra_tpu.parallel.rowshard import (
+    from ldpcgputegra.codes.code import DegreeClass, Layer, LdpcCode, QCRow
+    from ldpcgputegra.codes.dvbs2 import _conflict_groups
+    from ldpcgputegra.parallel.mesh import decode_mesh
+    from ldpcgputegra.parallel.rowshard import (
         make_rowsharded_decoder,
         rowshard_supported,
     )

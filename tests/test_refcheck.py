@@ -35,8 +35,8 @@ from refcheck.build import (  # noqa: E402
     reference_available,
 )
 
-from ldpcgputegra_tpu.golden import GoldenParams  # noqa: E402
-from ldpcgputegra_tpu.golden.decoder import decode_golden  # noqa: E402
+from ldpcgputegra.golden import GoldenParams  # noqa: E402
+from ldpcgputegra.golden.decoder import decode_golden  # noqa: E402
 
 VEC_DIR = os.path.join(os.path.dirname(__file__), "vectors")
 VECTORS = sorted(
@@ -60,7 +60,7 @@ def test_refcheck_vectors_exist():
 def _code_from_npz(d, name):
     """Rebuild the ARM-header code from the structure embedded in the npz,
     so this check is self-contained (runs without /root/reference)."""
-    from ldpcgputegra_tpu.codes.code import LdpcCode
+    from ldpcgputegra.codes.code import LdpcCode
 
     classes = list(zip(d["class_degs"].tolist(), d["class_counts"].tolist()))
     return LdpcCode.from_edges(

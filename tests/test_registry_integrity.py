@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from ldpcgputegra_tpu.codes.registry import list_codes, load_code
+from ldpcgputegra.codes.registry import list_codes, load_code
 
 
 @pytest.mark.slow

@@ -8,10 +8,10 @@ via one psum per layer, messages stay device-local."""
 import numpy as np
 import pytest
 
-from ldpcgputegra_tpu.codes.registry import load_code
-from ldpcgputegra_tpu.ops.layered import LayeredSpec, make_layered_decoder
-from ldpcgputegra_tpu.parallel.mesh import decode_mesh
-from ldpcgputegra_tpu.parallel.rowshard import (
+from ldpcgputegra.codes.registry import load_code
+from ldpcgputegra.ops.layered import LayeredSpec, make_layered_decoder
+from ldpcgputegra.parallel.mesh import decode_mesh
+from ldpcgputegra.parallel.rowshard import (
     make_rowsharded_decoder,
     rowshard_supported,
 )
@@ -64,7 +64,7 @@ def test_rowshard_dvbs2_staircase_one_frame():
     code = load_code("16200x7560")
     assert rowshard_supported(code, 8)
     mesh = decode_mesh(n_devices=8)
-    from ldpcgputegra_tpu.decoder import make_decoder
+    from ldpcgputegra.decoder import make_decoder
 
     spec = LayeredSpec(algo="OMS", iters=2)
     dec_s = make_rowsharded_decoder(code, spec, mesh)

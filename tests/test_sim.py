@@ -8,8 +8,8 @@ import os
 import numpy as np
 import pytest
 
-from ldpcgputegra_tpu.sim.analyzer import ErrorAnalyzer, count_errors
-from ldpcgputegra_tpu.sim.sweep import SweepConfig, run_sweep
+from ldpcgputegra.sim.analyzer import ErrorAnalyzer, count_errors
+from ldpcgputegra.sim.sweep import SweepConfig, run_sweep
 
 
 def test_count_errors_matches_numpy():
@@ -125,11 +125,11 @@ def test_mid_point_resume_exact(tmp_path):
     import jax
     import json as _json
 
-    from ldpcgputegra_tpu.channel.awgn import AwgnChannel, ChannelSpec
-    from ldpcgputegra_tpu.codes.registry import load_code
-    from ldpcgputegra_tpu.decoder import make_decoder
-    from ldpcgputegra_tpu.ops.layered import LayeredSpec
-    from ldpcgputegra_tpu.sim.analyzer import count_errors
+    from ldpcgputegra.channel.awgn import AwgnChannel, ChannelSpec
+    from ldpcgputegra.codes.registry import load_code
+    from ldpcgputegra.decoder import make_decoder
+    from ldpcgputegra.ops.layered import LayeredSpec
+    from ldpcgputegra.sim.analyzer import count_errors
 
     cfg = _tiny_cfg(snr_min=1.0, snr_max=1.0, batch=64, max_frames=256,
                     max_fe=10**6)
@@ -174,12 +174,12 @@ def test_cli_kill_and_resume(tmp_path):
 
     ck = str(tmp_path / "ck.json")
     args = [
-        sys.executable, "-m", "ldpcgputegra_tpu.sim.cli",
+        sys.executable, "-m", "ldpcgputegra.sim.cli",
         "--code", "576x288", "--min", "1.0", "--max", "1.0",
         "--batch", "64", "--max-frames", "512", "--fer", "1000000",
         "--iters", "4", "--quiet", "--checkpoint", ck,
     ]
-    env = dict(os.environ, JAX_PLATFORMS="cpu", LDPC_TPU_NO_NATIVE="0")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", LDPC_NO_NATIVE="0")
     # uninterrupted reference (separate checkpoint)
     ck_ref = str(tmp_path / "ref.json")
     ref_args = list(args)
@@ -219,7 +219,7 @@ def test_info_mode_ber_denominator():
 def test_layered_spec_rejects_wide_quantizers():
     """var/msg widths beyond int8 storage must raise, not silently wrap."""
     import pytest
-    from ldpcgputegra_tpu.ops.layered import LayeredSpec
+    from ldpcgputegra.ops.layered import LayeredSpec
 
     with pytest.raises(ValueError):
         LayeredSpec(sat_var=255)
@@ -233,7 +233,7 @@ def test_sweep_native_backend_matches_xla():
     IDENTICAL to the jitted path on the same channel keys — same llr
     (counter-based threefry), bit-identical decode (enforced again at
     runtime by the sweep's batch-0 cross-check)."""
-    from ldpcgputegra_tpu.golden.native import simd_available
+    from ldpcgputegra.golden.native import simd_available
 
     if not simd_available():
         import pytest as _pytest
@@ -251,7 +251,7 @@ def test_sweep_native_refuses_staircase_view():
     """QC-view staircase codes decode in a different (permuted) check
     order on the jitted paths; backend='native' must refuse rather than
     extend their curves with different-decoder statistics."""
-    from ldpcgputegra_tpu.golden.native import simd_available
+    from ldpcgputegra.golden.native import simd_available
 
     if not simd_available():
         import pytest as _pytest
@@ -271,7 +271,7 @@ def test_sweep_native_philox_channel():
     """channel_rng='philox' (native counter-based channel): deterministic
     across runs, and statistically consistent with the threefry channel
     at a high-FER point (binomial 5-sigma window)."""
-    from ldpcgputegra_tpu.golden.native import simd_available
+    from ldpcgputegra.golden.native import simd_available
 
     if not simd_available():
         pytest.skip("no AVX-512 native build")

@@ -10,7 +10,7 @@ count never changes results).
 
 from __future__ import annotations
 
-from ldpcgputegra_tpu.sim.sweep import SweepConfig, run_sweep
+from ldpcgputegra.sim.sweep import SweepConfig, run_sweep
 
 
 def _cfg(**kw):

@@ -2,8 +2,8 @@
 
 import io
 
-from ldpcgputegra_tpu.sim.analyzer import ErrorAnalyzer
-from ldpcgputegra_tpu.sim.terminal import Terminal, fmt_hms
+from ldpcgputegra.sim.analyzer import ErrorAnalyzer
+from ldpcgputegra.sim.terminal import Terminal, fmt_hms
 
 
 def test_fmt_hms():

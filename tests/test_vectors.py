@@ -7,8 +7,8 @@ import os
 import numpy as np
 import pytest
 
-from ldpcgputegra_tpu.codes.registry import load_code
-from ldpcgputegra_tpu.ops.layered import LayeredSpec, make_layered_decoder
+from ldpcgputegra.codes.registry import load_code
+from ldpcgputegra.ops.layered import LayeredSpec, make_layered_decoder
 
 VEC_DIR = os.path.join(os.path.dirname(__file__), "vectors")
 # refcheck_*.npz are reference-compiled-oracle vectors (tests/test_refcheck.py)

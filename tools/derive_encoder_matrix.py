@@ -22,12 +22,12 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from ldpcgputegra_tpu.channel.encoder import QCAccumulateEncoder  # noqa: E402
-from ldpcgputegra_tpu.codes.code import LdpcCode  # noqa: E402
-from ldpcgputegra_tpu.golden.decoder import syndrome_ok  # noqa: E402
+from ldpcgputegra.channel.encoder import QCAccumulateEncoder  # noqa: E402
+from ldpcgputegra.codes.code import LdpcCode  # noqa: E402
+from ldpcgputegra.golden.decoder import syndrome_ok  # noqa: E402
 
 DATA = os.path.join(
-    os.path.dirname(__file__), "..", "ldpcgputegra_tpu", "codes", "data"
+    os.path.dirname(__file__), "..", "ldpcgputegra", "codes", "data"
 )
 
 

@@ -16,8 +16,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from ldpcgputegra_tpu.codes.registry import load_code  # noqa: E402
-from ldpcgputegra_tpu.golden import GoldenParams, decode_oracle  # noqa: E402
+from ldpcgputegra.codes.registry import load_code  # noqa: E402
+from ldpcgputegra.golden import GoldenParams, decode_oracle  # noqa: E402
 
 OUT = os.path.join(os.path.dirname(__file__), "..", "tests", "vectors")
 

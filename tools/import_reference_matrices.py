@@ -13,7 +13,7 @@ those tables and re-encodes them in this framework's own compact format:
 
 Usage:
     python tools/import_reference_matrices.py --src /root/reference \
-        --out ldpcgputegra_tpu/codes/data
+        --out ldpcgputegra/codes/data
 
 Also imports DVB-S2 encoder tables (EncValues) when present.
 """
@@ -30,7 +30,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from ldpcgputegra_tpu.codes.code import LdpcCode  # noqa: E402
+from ldpcgputegra.codes.code import LdpcCode  # noqa: E402
 
 _DEFINE = re.compile(r"#define\s+(\w+)\s+\(?(-?\d+)")
 # encoder tables declare constants as ``int NAME = value;`` instead
@@ -153,7 +153,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default="/root/reference")
     ap.add_argument("--out", default=os.path.join(
-        os.path.dirname(__file__), "..", "ldpcgputegra_tpu", "codes", "data"))
+        os.path.dirname(__file__), "..", "ldpcgputegra", "codes", "data"))
     args = ap.parse_args()
     os.makedirs(args.out, exist_ok=True)
 

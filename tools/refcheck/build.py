@@ -269,7 +269,7 @@ def parse_x86_code(code_name: str):
     """Build an LdpcCode from the x86 constantes header (macros + table)."""
     import re
 
-    from ldpcgputegra_tpu.codes.code import LdpcCode
+    from ldpcgputegra.codes.code import LdpcCode
 
     path = os.path.join(
         REF_X86, "Constantes", X86_CODE_DIRS[code_name], "constantes_sse.h"
@@ -320,7 +320,7 @@ def parse_arm_code(code_name: str):
     """
     import re
 
-    from ldpcgputegra_tpu.codes.code import LdpcCode
+    from ldpcgputegra.codes.code import LdpcCode
 
     path = os.path.join(
         REF_ARM, "Constantes", CODE_DIRS[code_name], "constantes_sse.h"
